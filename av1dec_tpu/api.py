@@ -11,7 +11,9 @@ so whole streams decode through one object:
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import logging
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -19,6 +21,8 @@ import numpy as np
 
 from av1dec_tpu.bindings import NativeParser
 from av1dec_tpu.pipeline.recon import FrameRecon
+
+log = logging.getLogger("av1dec_tpu")
 
 
 @dataclass
@@ -60,8 +64,10 @@ class Decoder:
 
     `config`: DecoderConfig (threads, device platform, grain, frame
     limits); None = defaults.  Pixel work runs on the JAX device path
-    (wavefront + CDEF) when the frame qualifies and the configured
-    platform is an accelerator; otherwise the NumPy spec pipeline.
+    (wavefront + postfilter) when the frame qualifies and a device
+    platform is configured, or in auto mode when JAX's default backend
+    is an accelerator; otherwise the NumPy spec pipeline.  A configured
+    platform that JAX does not have is an error, not a fallback.
     """
 
     def __init__(self, config=None) -> None:
@@ -73,6 +79,7 @@ class Decoder:
         self._dpb: Dict[int, Optional[_Slot]] = {i: None for i in range(8)}
         self._shown = 0
         self._use_device = None  # resolved lazily (may import jax)
+        self._device = None      # the configured platform's device
         self.stats: List[dict] = []  # per-frame decode records
 
     def _device_enabled(self) -> bool:
@@ -80,15 +87,35 @@ class Decoder:
             cfg = self.config
             if cfg.use_spec_kernels or cfg.platform == "off":
                 self._use_device = False
-            elif cfg.platform in ("tpu", "cpu", "gpu"):
-                self._use_device = True
-            else:  # auto: device path only on a real accelerator
-                try:
-                    import jax
-                    self._use_device = jax.default_backend() != "cpu"
-                except Exception:
-                    self._use_device = False
+            else:
+                import jax
+
+                from av1dec_tpu import compile_cache
+                if cfg.platform is not None:
+                    try:
+                        self._device = jax.devices(cfg.platform)[0]
+                    except RuntimeError as e:
+                        raise RuntimeError(
+                            f"DecoderConfig.platform={cfg.platform!r} "
+                            f"but JAX has no such device: {e}") from e
+                    self._use_device = True
+                else:  # auto: device path only on an accelerator
+                    backend = jax.default_backend()
+                    self._use_device = backend != "cpu"
+                    log.info("auto device mode: JAX backend %r, pixel "
+                             "path %s", backend,
+                             "device" if self._use_device else "host")
+                if self._use_device:
+                    compile_cache.enable()
         return self._use_device
+
+    def _on_device(self):
+        """Default-device scope for the configured platform (auto mode
+        keeps JAX's default)."""
+        if self._device is None:
+            return contextlib.nullcontext()
+        import jax
+        return jax.default_device(self._device)
 
     @property
     def seq(self):
@@ -122,6 +149,7 @@ class Decoder:
             t0 = _time.monotonic()
             planes = None
             path = "host"
+            sr_dev = lr_dev = False
             # auto mode: small frames stay on host — device dispatch
             # (and a possible cold compile) dwarfs their pixel work
             big_enough = (self.config.platform is not None or
@@ -133,8 +161,10 @@ class Decoder:
                 dr = DeviceRecon(seq, hdr, plans, config=self.config,
                                  refs=refs)
                 if dr.supported():
-                    planes = dr.run()
+                    with self._on_device():
+                        planes = dr.run()
                     path = "device"
+                    sr_dev, lr_dev = dr._sr_on_device, dr._lr_on_device
                     # retain the device planes as a future ref unless a
                     # host tail (SGR restoration, or host-side
                     # superres) changed them post-fetch
@@ -159,6 +189,10 @@ class Decoder:
                 "lr": int(any((hdr.get("lr") or {})
                               .get("frame_restoration_type", [0, 0, 0]))),
                 "recon_path": path,
+                # superres / loop restoration ran inside the device
+                # postfilter (not in a host tail)
+                "superres_device": int(sr_dev),
+                "lr_device": int(lr_dev),
                 "ms": round((_time.monotonic() - t0) * 1000, 2),
             })
             slot = _Slot(planes=planes,

@@ -9,6 +9,7 @@ packed numpy buffers.
 from __future__ import annotations
 
 import ctypes as C
+import fcntl
 import json
 import os
 import subprocess
@@ -27,7 +28,7 @@ def _load():
     if _lib is not None:
         return _lib
     if not os.path.exists(_LIB_PATH):
-        subprocess.run(["make", "-s"], cwd=_NATIVE_DIR, check=True)
+        _make()
     lib = C.CDLL(_LIB_PATH)
     lib.av1n_create.restype = C.c_void_p
     lib.av1n_destroy.argtypes = [C.c_void_p]
@@ -123,9 +124,20 @@ class FramePlans:
         return self.mi[MI_FIELDS.index(name)]
 
 
+def _make() -> None:
+    """`make` the native library, one process at a time: processes that
+    start together (test workers) would otherwise rewrite the same
+    object files under each other."""
+    build = os.path.join(_NATIVE_DIR, "build")
+    os.makedirs(build, exist_ok=True)
+    with open(os.path.join(build, ".make.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        subprocess.run(["make", "-s"], cwd=_NATIVE_DIR, check=True)
+
+
 def rebuild_native() -> None:
-    """Force-rebuild the native library (dev helper)."""
-    subprocess.run(["make", "-s"], cwd=_NATIVE_DIR, check=True)
+    """Bring the native library up to date with its sources."""
+    _make()
     global _lib
     _lib = None
 

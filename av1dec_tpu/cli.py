@@ -32,7 +32,7 @@ def _plane_bytes(frame):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m av1dec_tpu",
-        description="TPU-native AV1 decoder")
+        description="AV1 decoder with a JAX device pixel pipeline")
     ap.add_argument("input", help="input IVF file")
     ap.add_argument("-o", "--output", help="raw YUV output file")
     ap.add_argument("--y4m", help="Y4M output file")
@@ -51,7 +51,7 @@ def main(argv=None):
                          "worker processes (with elastic recovery); "
                          "0 = serial")
     ap.add_argument("--device",
-                    choices=["auto", "off", "cpu", "tpu", "gpu"],
+                    choices=["auto", "off", "cpu", "gpu"],
                     default="auto",
                     help="pixel-pipeline device path: auto (accelerator "
                          "if present and the frame is large enough), "
@@ -63,17 +63,13 @@ def main(argv=None):
                     help="print per-frame decode records (JSON lines)")
     args = ap.parse_args(argv)
 
-    # device-path environment, set BEFORE any jax import: the
-    # persistent compilation cache (without it every CLI run pays the
-    # full per-geometry compile — minutes on a remote TPU), and the
-    # JAX backend when an explicit platform was requested (the path
-    # toggle alone would otherwise still run pixel work on whatever
-    # backend JAX picked)
+    # an explicit platform also selects JAX's backend (this must come
+    # before the first jax import; when jax is already up in this
+    # process, Decoder still checks that the platform exists).  The
+    # device path places the persistent compile cache itself
+    # (av1dec_tpu/compile_cache.py).
     import os
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-    os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS",
-                          "1")
-    if args.device in ("cpu", "tpu", "gpu"):
+    if args.device in ("cpu", "gpu"):
         os.environ.setdefault("JAX_PLATFORMS", args.device)
 
     from av1dec_tpu.api import Decoder

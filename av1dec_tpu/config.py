@@ -2,7 +2,7 @@
 
 One frozen dataclass, passed explicitly (JAX-idiomatic; no global flag
 registry).  Mirrors the CLI surface of a standard AV1 decoder
-(threads/output/md5) plus the TPU-specific mesh controls.
+(threads/output/md5) plus the device and mesh controls.
 """
 
 from __future__ import annotations
@@ -16,9 +16,10 @@ class DecoderConfig:
     # Host-side entropy decode worker threads (tile-parallel).
     threads: int = 1
 
-    # Column shards over a 1-D ("space",) device mesh for the filter
-    # chain (parallel/sharded_cdef.py); 0 = single device.  Falls back
-    # per frame when the width isn't shard-aligned.
+    # Column shards over a 1-D ("space",) device mesh for CDEF
+    # (parallel/sharded_cdef.py); 0 = single device.  Needs that many
+    # devices; a frame whose width isn't shard-aligned runs CDEF on one
+    # device (logged).
     space_shards: int = 0
 
     # Apply film grain synthesis at output [SPEC §7.18.3].  References are
@@ -34,15 +35,18 @@ class DecoderConfig:
     # Limit decode to the first N shown frames (0 = no limit).
     max_frames: int = 0
 
-    # Use the slow jnp spec-model kernels instead of Pallas (debugging /
-    # CPU-only runs).
+    # Force the NumPy spec pipeline for pixel work (same as
+    # platform="off").
     use_spec_kernels: bool = False
 
-    # Run pixel work on this JAX platform ("tpu", "cpu", None = default).
+    # Run pixel work on this JAX platform: "gpu" or "cpu" (must exist,
+    # else decoding raises), "off" = NumPy spec pipeline, None = auto
+    # (device path when JAX's default backend is an accelerator).
     platform: Optional[str] = None
 
     # In auto device mode, frames smaller than this (luma pixels) stay
-    # on the host path: per-geometry compile + dispatch latency through
-    # a remote accelerator dwarfs the compute for small frames.  An
-    # explicit `platform` bypasses the heuristic.
+    # on the host path, where per-geometry compile and dispatch cost
+    # more than the pixel work.  The value was chosen for an earlier
+    # accelerator and is not yet tuned on the GPU.  An explicit
+    # `platform` bypasses the heuristic.
     min_device_pixels: int = 230_000

@@ -3,7 +3,7 @@
 // Constants and struct fields mirror the AV1 Bitstream & Decoding Process
 // Specification (cited as [SPEC §x.y]).  This is the host-side half of the
 // decoder: everything here feeds the entropy decode layer whose output is
-// dense "plan" tensors consumed by the TPU pixel pipeline.
+// dense "plan" tensors consumed by the JAX pixel pipeline.
 #pragma once
 
 #include <cstdint>

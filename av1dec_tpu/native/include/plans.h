@@ -1,4 +1,4 @@
-// Plan tensors: the host->TPU interface.
+// Plan tensors: the host->device interface.
 //
 // The entropy layer emits, per frame, dense fixed-layout arrays that the
 // JAX/Pallas pixel pipeline consumes as batched integer tensors

@@ -5,7 +5,7 @@
 // block syntax (segment prediction, ref frames, the MV prediction stack
 // with DRL, interpolation filters, motion modes, compound types and
 // local-warp estimation) and writes the results into the plan tensors
-// consumed by the TPU pixel pipeline.
+// consumed by the JAX pixel pipeline.
 #include <algorithm>
 #include <cstdlib>
 #include <cstring>

@@ -1,17 +1,17 @@
 """Device CDEF — whole-frame jitted formulation. [SPEC §7.15]
 
-TPU-first restructuring of ops.spec.cdef_vec (the NumPy oracle):
+Whole-frame restructuring of ops.spec.cdef_vec (the NumPy oracle):
 
-- direction search: one [B,64]x[64,120] int32 matmul (all 8 projection
-  axes at once) — rides the MXU;
+- direction search: one [B,64]x[64,120] int32 product with a one-hot
+  projection matrix (all 8 projection axes at once);
 - filtering: the 12 tap gathers use per-pixel offsets that take only 8
   values (one per direction), so each gather is a select over 8
   STATICALLY-shifted copies of the padded plane.  No dynamic gathers:
-  shifts are static slices, selection is elementwise — XLA fuses the
-  whole filter into a few VPU passes;
+  shifts are static slices, selection is elementwise, so XLA fuses the
+  filter into a few elementwise loop passes;
 - the entire frame (direction search + variance gating + all three
-  plane filters) is ONE jitted dispatch and ONE device->host fetch —
-  dispatch latency over the device link dominates at these sizes.
+  plane filters) is one jitted program; the decoder runs it inside
+  the fused postfilter dispatch (pipeline/device_recon.py).
 
 All int32; bit-exact vs the scalar spec model (tests/test_bitexact
 battery covers CDEF streams in both modes).
@@ -89,7 +89,7 @@ def _filter_plane(plane_arr, pri_px, sec_px, dir_px, pri_shift, sec_shift,
                   apply_px, coeff_shift, pad=None):
     """One plane, whole-frame.  All *_px are [H,W] int32.  `pad` may be
     a prebuilt [H+4, W+4] bordered copy (the column-sharded path builds
-    it with neighbour halos over ICI instead of CDEF_VERY_LARGE)."""
+    it with neighbour halo columns instead of CDEF_VERY_LARGE)."""
     H, W = plane_arr.shape
     if pad is None:
         pad = jnp.full((H + 4, W + 4), CDEF_VERY_LARGE, jnp.int32)
@@ -137,11 +137,11 @@ def _filter_plane(plane_arr, pri_px, sec_px, dir_px, pri_shift, sec_shift,
 
 
 def _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u,
-               bd, damping_y, subx, suby, mk_pad=None, use_pallas=False):
+               bd, damping_y, subx, suby, mk_pad=None):
     """CDEF on device.  `planes`: tuple of [H,W] int32 plane arrays;
     *_u: per-8x8-luma-unit strengths (already gated by `active`, <=0
     where inactive).  `mk_pad(plane)` optionally supplies the bordered
-    [H+4, W+4] copy (the column-sharded path exchanges ICI halos there).
+    [H+4, W+4] copy (the column-sharded path exchanges halos there).
     Returns the filtered planes (same shapes)."""
     coeff_shift = bd - 8
     luma = planes[0]
@@ -161,10 +161,8 @@ def _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u,
         return jnp.repeat(jnp.repeat(u, ry, axis=0), rx, axis=1)[:H, :W]
 
     H, W = luma.shape
-    fp = _filter_plane_pallas if (use_pallas and mk_pad is None) \
-        else _filter_plane
     apply_y = (pri_adj > 0) | (y_sec_u > 0)
-    out = [fp(
+    out = [_filter_plane(
         luma,
         expand(pri_adj, 8, 8, H, W),
         expand(y_sec_u, 8, 8, H, W),
@@ -188,18 +186,18 @@ def _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u,
                 expand(shift_for(uv_sec_u, damping_y - 1), ry, rx, Hc, Wc),
                 expand(apply_uv, ry, rx, Hc, Wc))
         for pl in (1, 2):
-            out.append(fp(
+            out.append(_filter_plane(
                 planes[pl], *args, coeff_shift,
                 pad=mk_pad(planes[pl]) if mk_pad else None))
     return tuple(out)
 
 
-@functools.partial(jax.jit, static_argnums=(5, 6, 7, 8, 9))
+@functools.partial(jax.jit, static_argnums=(5, 6, 7, 8))
 def _cdef_all(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u,
-              bd, damping_y, subx, suby, use_pallas=False):
+              bd, damping_y, subx, suby):
     """Single-device whole-frame CDEF (jitted _cdef_core)."""
     return _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u,
-                      bd, damping_y, subx, suby, use_pallas=use_pallas)
+                      bd, damping_y, subx, suby)
 
 
 def compute_gates(seq, hdr, plans, n_planes, bd):
@@ -260,125 +258,3 @@ def cdef_frame(planes, seq, hdr, plans, bd):
     for pl, out in enumerate(fetched):
         planes[pl][...] = out
     return planes
-
-
-# ---------------------------------------------------------------------------
-# Pallas CDEF filter kernel (TPU): row-tiled, VMEM-resident stencil
-# ---------------------------------------------------------------------------
-#
-# Same math as _filter_plane, as a Pallas kernel: each grid step DMAs a
-# (TH+4, W+4)-bordered row band into VMEM scratch and computes the 12
-# constrained taps through STATIC slices (one per direction), selected
-# elementwise — pure VPU work, one fused pass per row tile instead of
-# XLA's materialized shifted copies.  Gated by use_pallas in _cdef_core
-# (DeviceRecon enables it on TPU backends); the XLA formulation remains
-# the fallback and is the oracle for tests/test_pallas_cdef.py.
-
-_TH = 8  # rows per grid step (8x8 CDEF units -> direction rows align)
-
-
-def _cdef_tile_kernel(pad_hbm, pri_ref, sec_ref, dir_ref, psh_ref,
-                      ssh_ref, app_ref, tap0_ref, tap1_ref, out_ref,
-                      scratch, sem):
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    i = pl.program_id(0)
-    # DMA a 16-row band (Mosaic requires 8-row-aligned slice dims; the
-    # +4-halo band is 12) — rows [i*TH, i*TH+16) of the padded array
-    cp = pltpu.make_async_copy(
-        pad_hbm.at[pl.ds(i * _TH, _TH + 8), :], scratch, sem)
-    cp.start()
-    cp.wait()
-    Wp = out_ref.shape[1]
-    x = scratch[2:2 + _TH, 2:2 + Wp]
-    pri = pri_ref[...]
-    sec = sec_ref[...]
-    dirs = dir_ref[...]
-    psh = psh_ref[...]
-    ssh = ssh_ref[...]
-
-    total = jnp.zeros_like(x)
-    mx = x
-    mn = x
-
-    def constrain(diff, strength, shift):
-        ad = jnp.abs(diff)
-        return jnp.sign(diff) * jnp.minimum(
-            ad, jnp.maximum(0, strength - (ad >> shift)))
-
-    def gather(rot, k, sgn):
-        out = jnp.zeros_like(x)
-        for d in range(8):
-            dd = (d + rot) & 7
-            dy = sgn * int(_DIR_DY[dd, k])
-            dx = sgn * int(_DIR_DX[dd, k])
-            sh = scratch[2 + dy:2 + dy + _TH, 2 + dx:2 + dx + Wp]
-            out = jnp.where(dirs == d, sh, out)
-        return out
-
-    for k in range(2):
-        tap_p = tap0_ref[...] if k == 0 else tap1_ref[...]
-        sec_tap = 2 if k == 0 else 1
-        for sgn in (1, -1):
-            p = gather(0, k, sgn)
-            valid = (p != CDEF_VERY_LARGE) & (pri > 0)
-            total = total + jnp.where(
-                valid, tap_p * constrain(p - x, pri, psh), 0)
-            mx = jnp.where(valid, jnp.maximum(mx, p), mx)
-            mn = jnp.where(valid, jnp.minimum(mn, p), mn)
-        for rot in (2, 6):
-            for sgn in (1, -1):
-                p = gather(rot, k, sgn)
-                valid = (p != CDEF_VERY_LARGE) & (sec > 0)
-                total = total + jnp.where(
-                    valid, sec_tap * constrain(p - x, sec, ssh), 0)
-                mx = jnp.where(valid, jnp.maximum(mx, p), mx)
-                mn = jnp.where(valid, jnp.minimum(mn, p), mn)
-    y = x + ((8 + total - (total < 0).astype(jnp.int32)) >> 4)
-    y = jnp.clip(y, mn, mx)
-    out_ref[...] = jnp.where(app_ref[...] != 0, y, x)
-
-
-def _filter_plane_pallas(plane_arr, pri_px, sec_px, dir_px, pri_shift,
-                         sec_shift, apply_px, coeff_shift, pad=None,
-                         interpret=False):
-    """Pallas twin of _filter_plane (same arguments/semantics)."""
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    H, W = plane_arr.shape
-    if pad is None:
-        pad = jnp.full((H + 4, W + 4), CDEF_VERY_LARGE, jnp.int32)
-        pad = pad.at[2:H + 2, 2:W + 2].set(plane_arr.astype(jnp.int32))
-    Hp = -(-H // _TH) * _TH
-    Wp = -(-W // 128) * 128
-    # +16 rows so every 16-row DMA band stays in bounds; +128 cols so
-    # the halo'd width is lane-aligned
-    padded = jnp.full((Hp + 16, Wp + 128), CDEF_VERY_LARGE, jnp.int32)
-    padded = padded.at[:H + 4, :W + 4].set(pad)
-
-    def grow(a, fill=0):
-        out = jnp.full((Hp, Wp), fill, jnp.int32)
-        return out.at[:H, :W].set(a.astype(jnp.int32))
-
-    pri_tap0 = jnp.where(((pri_px >> coeff_shift) & 1) == 0, 4, 3)
-    pri_tap1 = jnp.where(((pri_px >> coeff_shift) & 1) == 0, 2, 3)
-
-    bspec = pl.BlockSpec((_TH, Wp), lambda i: (i, 0))
-    out = pl.pallas_call(
-        _cdef_tile_kernel,
-        out_shape=jax.ShapeDtypeStruct((Hp, Wp), jnp.int32),
-        grid=(Hp // _TH,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] +
-                 [bspec] * 8,
-        out_specs=bspec,
-        scratch_shapes=[
-            pltpu.VMEM((_TH + 8, Wp + 128), jnp.int32),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        interpret=interpret,
-    )(padded, grow(pri_px), grow(sec_px), grow(dir_px),
-      grow(pri_shift), grow(sec_shift), grow(apply_px),
-      grow(pri_tap0), grow(pri_tap1))
-    return jnp.where(jnp.asarray(apply_px) != 0, out[:H, :W],
-                     plane_arr.astype(jnp.int32))

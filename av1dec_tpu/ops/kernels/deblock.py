@@ -1,7 +1,7 @@
 """Device deblocking loop filter — whole-frame jitted formulation.
 [SPEC §7.14]
 
-TPU-first restructuring of ops.spec.deblock (the NumPy oracle).  The
+Whole-frame restructuring of ops.spec.deblock (the NumPy oracle).  The
 spec walks edges sequentially, but within one pass (all vertical edges,
 then all horizontal edges) the filters are provably independent: an
 edge's taps never read pixels another same-pass edge writes, because
@@ -14,7 +14,7 @@ runs as ONE data-parallel whole-frame computation:
 - the 14 edge-crossing taps p6..q6 are 14 STATIC strided slices of the
   (zero-padded) plane — no gathers;
 - all masks/filters from ops.spec.deblock._filter_lines evaluate
-  elementwise over an [H, W/4] edge lattice (VPU work, XLA-fused);
+  elementwise over an [H, W/4] edge lattice (XLA-fused);
 - written pixels are recombined by static shifts + where() — each
   output position has at most one actual writer (the independence
   argument above), so combination order is immaterial;

@@ -1,6 +1,6 @@
 """Device loop restoration — Wiener filter, whole-frame. [SPEC §7.17.4]
 
-TPU-first restructuring of ops.spec.lr's per-unit/per-stripe walk:
+Whole-plane restructuring of ops.spec.lr's per-unit/per-stripe walk:
 
 - the 7-tap separable Wiener filter runs as whole-plane passes with
   PER-PIXEL taps gathered from the per-unit coefficient maps (units
@@ -8,10 +8,11 @@ TPU-first restructuring of ops.spec.lr's per-unit/per-stripe walk:
 - LR's stripe-boundary read semantics (each 64-luma-row stripe reads
   at most 2 rows above/below itself, and those rows come from the
   deblocked PRE-CDEF frame) collapse into 7 per-output-row gathers:
-  the horizontal pass is computed once over the post-CDEF plane and
-  once over the pre-CDEF plane, and the vertical pass selects, per
-  (output row, tap), the stripe-clamped row from the right source —
-  indices and inside-stripe masks precomputed on host;
+  for each vertical tap, the stripe-clamped source row is gathered
+  from the right source (indices and inside-stripe masks precomputed
+  on host) and filtered horizontally with the OUTPUT pixel's unit
+  taps — a source row across a unit-row boundary belongs to another
+  unit but is filtered with this one's [SPEC §7.17.4];
 - frames whose active units are all Wiener run this pass fused into
   the postfilter chain; frames with any self-guided unit keep the
   host LR tail (pipeline/device_recon.finish_host).
@@ -55,12 +56,10 @@ def wiener_plane(cdef_p, pre_p, args, bd):
             acc = acc + th_px[:, :, k] * z[:, k:k + W]
         return jnp.clip(_round2(acc, r0), 0, lim)
 
-    hc = hpass(cdef_p)
-    hp = hpass(pre_p)
     acc = jnp.full((H, W), -(1 << (bd + r1 - 1)), jnp.int32)
     for k in range(7):
-        row = jnp.where(inside[k][:, None], hc[vr[k]], hp[vr[k]])
-        acc = acc + tv_px[:, :, k] * row
+        src = jnp.where(inside[k][:, None], cdef_p[vr[k]], pre_p[vr[k]])
+        acc = acc + tv_px[:, :, k] * hpass(src)
     out = jnp.clip(_round2(acc, r1), 0, (1 << bd) - 1)
     act_px = act[uy][:, ux] != 0
     return jnp.where(act_px, out, cdef_p.astype(jnp.int32))

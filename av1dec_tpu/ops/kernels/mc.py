@@ -1,7 +1,7 @@
 """Device motion compensation — batched translational MC lanes.
 [SPEC §7.11.3.4]
 
-TPU-first restructuring of ops.spec.inter.block_inter_pred for the
+Batched restructuring of ops.spec.inter.block_inter_pred for the
 UNSCALED-reference case (x_scale == y_scale == 1<<14, the overwhelming
 majority of inter prediction; scaled refs fall back to the host path):
 
@@ -15,12 +15,12 @@ majority of inter prediction; scaled refs fall back to the host path):
   the jit key is stable across frames;
 - per bucket: one [N, T+7, T+7] window gather from the packed
   reference buffer, horizontal then vertical 8-tap passes as 8 static
-  shifted slices x per-lane taps (VPU work), spec rounding r0/r1;
+  shifted slices x per-lane taps (elementwise), spec rounding r0/r1;
 - compound lanes carry BOTH lists and blend in-lane with per-lane
   weights/shift (average and distance-weighted compound share one
   w0*p0 + w1*p1 >> shift form [SPEC §7.11.3.15]);
-- one scatter into the flat frame buffer (per-pixel .at[].set, the
-  measured-fastest form on this TPU stack).
+- one per-pixel scatter (.at[].set, masked pixels dropped) into the
+  flat frame buffer.
 
 All int32; bit-exact vs the host spec model (tests/test_device_inter.py
 locks DeviceRecon output == FrameRecon == libaom oracle on inter

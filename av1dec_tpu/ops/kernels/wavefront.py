@@ -445,11 +445,11 @@ def _apply_bucket(frame, packed, start, count, res_flat, pal_t, *, T, bd,
         out = jnp.where((roff >= 0)[:, None, None],
                         jnp.clip(out + res, 0, (1 << bd) - 1), out)
 
-        # scatter (masked pixels -> OOB index, dropped).  Measured on
-        # v5e: the per-pixel form beats windowed scatter/scatter-add
-        # variants by ~10x (TPU lowers windowed updates to serial
-        # loops); per-LEVEL dispatch overhead dominates either way and
-        # is amortized by multi-frame batching (run_device_batch).
+        # scatter (masked pixels -> OOB index, dropped).  The
+        # per-pixel form was chosen over windowed scatter variants on
+        # an earlier accelerator; it is not yet measured on the GPU.
+        # Multi-frame batching (run_device_batch) amortizes the
+        # per-level step cost across frames.
         fidx = jnp.where(valid[:, None, None] & pixmask, fidx_raw,
                          frame.shape[0])
         return frame.at[fidx.reshape(-1)].set(out.reshape(-1), mode="drop")

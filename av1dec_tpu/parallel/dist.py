@@ -2,20 +2,19 @@
 
 The reference is single-process shared-memory; N-host scaling is a new
 capability of this build: `jax.distributed` joins the processes of a
-pod slice (or any set of hosts) into one global device namespace, a
-global Mesh lays `data` (frames/GOPs) across hosts — collectives
-between co-located devices ride ICI, cross-host legs ride DCN — and
-GOP assignment is pure data parallelism (keyframe-delimited GOPs are
+set of hosts into one global device namespace, a global Mesh lays
+`data` (frames/GOPs) across hosts, and GOP assignment is pure data
+parallelism (keyframe-delimited GOPs are
 fully independent, container.index_keyframes).
 
 Decode work split across hosts:
   host h decodes GOPs g where g % num_processes == process_id, with
   the in-host device path unchanged; outputs are re-ordered by the
-  caller (or streamed to a sink per host).  No pixel data crosses DCN
+  caller (or streamed to a sink per host).  No pixel data crosses hosts
   for GOP parallelism — only the stream bytes each host reads itself.
 
 Tested by tests/test_distributed.py: two real processes join a
-coordinator, build a global CPU mesh, run a psum over DCN, and decode
+coordinator, build a global CPU mesh, run a cross-process psum, and decode
 disjoint GOP shards of one stream whose union is byte-identical to a
 serial decode.
 """
@@ -29,9 +28,9 @@ def initialize_distributed(coordinator: str | None = None,
                            process_id: int | None = None) -> None:
     """Join this process into a multi-host JAX cluster.
 
-    On TPU pods the three arguments auto-detect from the environment;
-    elsewhere (CPU/GPU clusters, tests) pass them explicitly or via
-    AV1DEC_COORDINATOR / AV1DEC_NUM_PROCS / AV1DEC_PROC_ID."""
+    Pass the three arguments explicitly or via AV1DEC_COORDINATOR /
+    AV1DEC_NUM_PROCS / AV1DEC_PROC_ID; JAX cannot detect them on a GPU
+    or CPU cluster."""
     import jax
     coordinator = coordinator or os.environ.get("AV1DEC_COORDINATOR")
     if num_processes is None:

@@ -3,7 +3,7 @@
 Loop-filter stages read a bounded neighbourhood (deblock ±7 px across an
 edge, CDEF ±2, Wiener/SGR ±3).  When a frame plane is sharded by columns
 over the `space` mesh axis, each shard needs `halo` columns from its
-neighbours; `ppermute` moves them over ICI.
+neighbours; `ppermute` moves them between devices.
 """
 import jax
 import jax.numpy as jnp

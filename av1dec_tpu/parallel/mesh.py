@@ -3,7 +3,8 @@
 Axes:
   data  — independent work batches (transform-block buckets, frames/GOPs)
   space — spatial frame shards (tile columns); neighbours exchange
-          loop-filter halos over ICI
+          loop-filter halos with ppermute.  The cards of one host are
+          joined all to all, so the mesh follows the algorithm only.
 """
 import jax
 import numpy as np

@@ -2,8 +2,8 @@
 
 The whole-frame CDEF formulation (ops/kernels/cdef.py) reads a bounded
 +-2px neighbourhood, so a frame plane column-sharded over the `space`
-mesh axis only needs 2 halo columns from each neighbour, moved over ICI
-with `ppermute` (parallel/halo.py).  Direction search and the per-unit
+mesh axis only needs 2 halo columns from each neighbour, moved with
+`ppermute` (parallel/halo.py).  Direction search and the per-unit
 strength maps are local to each shard (8x8-unit-aligned shards).
 
 Bit-exactness vs the single-device path is asserted by
@@ -16,12 +16,8 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
-
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 
 from av1dec_tpu.ops.kernels import cdef as C
 from av1dec_tpu.ops.spec.cdef import CDEF_VERY_LARGE

@@ -16,12 +16,7 @@ decoded frames.
 from __future__ import annotations
 
 import numpy as np
-
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
-
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 from av1dec_tpu.ops.kernels.wavefront import _F, make_windows
@@ -215,8 +210,8 @@ def decode_frames_sharded(drs, mesh, axis="data"):
                       for pl in stacked["dbl"]))
     out_specs = tuple(sh for _ in range(cfg["num_planes"]))
 
-    fn = shard_map(body, mesh=mesh, in_specs=in_specs,
-                   out_specs=out_specs, check_vma=False)
+    fn = jax.jit(shard_map(body, mesh=mesh, in_specs=in_specs,
+                           out_specs=out_specs, check_vma=False))
     outs = fn(tuple(jnp.asarray(stacked["packed"][t]) for t in ts),
               tuple(jnp.asarray(stacked["pal"][t]) for t in ts),
               jnp.asarray(stacked["ws"]), jnp.asarray(stacked["wc"]),
@@ -229,6 +224,9 @@ def decode_frames_sharded(drs, mesh, axis="data"):
               jnp.asarray(stacked["uv_sec"]),
               tuple(tuple((jnp.asarray(fv), jnp.asarray(lv))
                           for fv, lv in pl) for pl in stacked["dbl"]))
+    # each frame's planes must come back from its own device
+    assert outs[0].sharding.device_set == set(mesh.devices.flat), \
+        outs[0].sharding
     host = [np.asarray(o) for o in jax.device_get(outs)]
     return [[host[p][f].astype(np.int64)
              for p in range(cfg["num_planes"])] for f in range(K)]

@@ -1,7 +1,7 @@
 """Wavefront-scheduled intra reconstruction. [SPEC §7.11.2, SURVEY §7.1]
 
 The per-block spec model (`pipeline.recon.FrameRecon`) walks transform
-blocks serially.  For the TPU path we restructure the same math as a
+blocks serially.  For the device path we restructure the same math as a
 *schedule*: every transform block is assigned a wavefront level such
 that all of its prediction inputs (reconstructed neighbor pixels) were
 written at strictly earlier levels.  All blocks on one level are

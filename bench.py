@@ -20,88 +20,18 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
 _REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, _REPO)
 sys.path.insert(0, os.path.join(_REPO, "tools"))
 
-STREAM = "/tmp/av1dec_bench_1080p_v3.ivf"
-STREAM_INTER = "/tmp/av1dec_bench_1080p_inter_v1.ivf"
-W, H, FRAMES = 1920, 1080, 8
+# committed streams, written by tools/make_smoke_streams.py
+STREAM = os.path.join(_REPO, "streams", "intra_1080p.ivf")
+STREAM_INTER = os.path.join(_REPO, "streams", "inter_1080p.ivf")
 THREADS = max(1, min(4, os.cpu_count() or 1))
 
 
 def log(msg):
     print(msg, file=sys.stderr, flush=True)
-
-
-def ensure_stream():
-    if os.path.exists(STREAM):
-        return
-    import numpy as np
-
-    import aomffi
-    rng = np.random.default_rng(5)
-    yy, xx = np.mgrid[:H, :W]
-    enc = aomffi.AomEncoder(
-        W, H, cpu_used=6, kf_max_dist=1, lag=0,
-        options=[("cq-level", "40"), ("tile-columns", "1"),
-                 ("tile-rows", "1")], end_usage=3)
-    pkts = []
-    for i in range(FRAMES):
-        y = (110 + 70 * np.sin(xx / 17.0 + i * 0.3) *
-             np.cos(yy / 23.0 - i * 0.2) +
-             rng.normal(0, 12, (H, W))).clip(0, 255).astype(np.uint8)
-        u = (128 + 40 * np.sin(xx[:H // 2, :W // 2] / 13.0 + i * 0.1) +
-             rng.normal(0, 8, (H // 2, W // 2))).clip(0, 255) \
-            .astype(np.uint8)
-        v = (128 + 40 * np.cos(yy[:H // 2, :W // 2] / 15.0) +
-             rng.normal(0, 8, (H // 2, W // 2))).clip(0, 255) \
-            .astype(np.uint8)
-        pkts += enc.encode(y, u, v, pts=i)
-    pkts += enc.flush()
-    enc.close()
-    aomffi.write_ivf(STREAM, pkts, W, H)
-
-
-def ensure_inter_stream():
-    """1080p low-delay inter stream (1 KF + 7 inter), simple tools only
-    (no warp/OBMC/masked compound) so every inter frame qualifies for
-    the device MC path."""
-    if os.path.exists(STREAM_INTER):
-        return
-    import numpy as np
-
-    import aomffi
-    rng = np.random.default_rng(17)
-    pad = 64
-    yy, xx = np.mgrid[:H + pad, :W + pad]
-    base_y = (110 + 70 * np.sin(xx / 17.0) * np.cos(yy / 23.0) +
-              rng.normal(0, 10, (H + pad, W + pad))).clip(0, 255) \
-        .astype(np.uint8)
-    base_u = (128 + 40 * np.sin(xx[::2, ::2] / 13.0)).clip(0, 255) \
-        .astype(np.uint8)
-    base_v = (128 + 40 * np.cos(yy[::2, ::2] / 15.0)).clip(0, 255) \
-        .astype(np.uint8)
-    enc = aomffi.AomEncoder(
-        W, H, cpu_used=6, kf_max_dist=9999, lag=0, end_usage=3,
-        options=[("cq-level", "40"),
-                 ("enable-obmc", "0"), ("enable-warped-motion", "0"),
-                 ("enable-masked-comp", "0"),
-                 ("enable-interintra-comp", "0"),
-                 ("enable-global-motion", "0")])
-    pkts = []
-    for i in range(FRAMES):
-        dy, dx = 2 * i, 3 * i
-        y = base_y[dy:dy + H, dx:dx + W]
-        u = base_u[dy // 2:dy // 2 + H // 2, dx // 2:dx // 2 + W // 2]
-        v = base_v[dy // 2:dy // 2 + H // 2, dx // 2:dx // 2 + W // 2]
-        pkts += enc.encode(y, u, v, pts=i)
-    pkts += enc.flush()
-    enc.close()
-    aomffi.write_ivf(STREAM_INTER, pkts, W, H)
 
 
 def bench_inter(log):
@@ -115,7 +45,6 @@ def bench_inter(log):
     from av1dec_tpu.config import DecoderConfig
     from av1dec_tpu.container import read_ivf
 
-    ensure_inter_stream()
     datas = [d for _, d in read_ivf(STREAM_INTER)]
 
     def run():
@@ -229,10 +158,12 @@ def main():
     import aomffi
     from av1dec_tpu.bindings import NativeParser
 
-    ensure_stream()
     datas = [d for _, d in aomffi.read_ivf(STREAM)]
 
     import jax
+
+    from av1dec_tpu import compile_cache
+    compile_cache.enable()
     log(f"bench: device={jax.devices()[0]}, entropy threads={THREADS}")
 
     # --- stage timer: entropy front-half alone (warm pass: the first

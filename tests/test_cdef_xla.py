@@ -1,19 +1,20 @@
-"""Pallas CDEF filter kernel == XLA formulation, elementwise exact.
+"""XLA CDEF filter == the NumPy oracle, elementwise exact.
 
-The Pallas tile kernel (ops/kernels/cdef._filter_plane_pallas) is the
-TPU fast path; the XLA _filter_plane (itself oracle-checked against the
-scalar spec model and libaom) is its reference.  Runs in interpreter
-mode on the CPU backend.
+ops/kernels/cdef._filter_plane is the decoder's only CDEF filter (it
+runs inside the fused postfilter); ops/spec/cdef_vec._filter_plane is
+its NumPy twin, itself checked against the scalar spec model and
+libaom by the stream batteries.
 """
 import numpy as np
 import pytest
 
 
 @pytest.mark.parametrize("shape", [(64, 64), (40, 72), (24, 128)])
-def test_pallas_filter_matches_xla(shape):
+def test_xla_filter_matches_numpy_oracle(shape):
     import jax.numpy as jnp
 
     from av1dec_tpu.ops.kernels import cdef as C
+    from av1dec_tpu.ops.spec import cdef_vec
 
     rng = np.random.default_rng(7)
     H, W = shape
@@ -40,9 +41,10 @@ def test_pallas_filter_matches_xla(shape):
     ssh = expand(shift_for(sec_u, damping))
     app = ((pri > 0) | (sec > 0)).astype(np.int32)
 
-    args = [jnp.asarray(plane), jnp.asarray(pri), jnp.asarray(sec),
-            jnp.asarray(dirs), jnp.asarray(psh), jnp.asarray(ssh),
-            jnp.asarray(app), 0]
-    ref = np.asarray(C._filter_plane(*args))
-    got = np.asarray(C._filter_plane_pallas(*args, interpret=True))
-    assert (ref == got).all(), np.argwhere(ref != got)[:5]
+    ref = cdef_vec._filter_plane(plane, pri, sec, dirs, psh, ssh, bd, 0,
+                                 app != 0)
+    got = np.asarray(C._filter_plane(
+        jnp.asarray(plane), jnp.asarray(pri), jnp.asarray(sec),
+        jnp.asarray(dirs), jnp.asarray(psh), jnp.asarray(ssh),
+        jnp.asarray(app), 0))
+    assert (np.asarray(ref) == got).all(), np.argwhere(ref != got)[:5]

@@ -167,3 +167,59 @@ def test_sanitizer_builds_decode_clean(native_lib):
                 capture_output=True, text=True)
             assert r.returncode == 0, r.stderr
             assert "WARNING" not in r.stderr, r.stderr
+
+
+def test_native_library_exports_only_c_api(native_lib):
+    """The shared library exports its C API (av1n_*) and nothing else
+    (native/exports.map), so none of its C++ symbols binds to another
+    object in the process."""
+    import shutil
+    import subprocess
+
+    from av1dec_tpu import bindings
+    nm = shutil.which("nm")
+    assert nm, "binutils nm is needed to list the exported symbols"
+    out = subprocess.run([nm, "-D", "--defined-only", bindings._LIB_PATH],
+                         capture_output=True, text=True, check=True).stdout
+    names = [line.split()[-1] for line in out.splitlines() if line.strip()]
+    assert "av1n_parse_tu" in names
+    assert [n for n in names if not n.startswith("av1n_")] == []
+
+
+_STATIC_PARSE = """
+import json, sys
+import jax  # loads the shared libstdc++.so.6 before the native library
+import aomffi
+from av1dec_tpu.bindings import NativeParser
+p = NativeParser()
+hdrs = [h for _, d in aomffi.read_ivf(sys.argv[1]) for h in p.parse_tu(d)]
+print(json.dumps(hdrs, sort_keys=True))
+"""
+
+
+def test_static_libstdcxx_build_parses_after_jax(tmp_path):
+    """A build that links libstdc++ statically keeps that copy to itself:
+    exported, its locale statics (STB_GNU_UNIQUE) bound to the
+    libstdc++.so.6 that `import jax` loads, and the frame JSON came out
+    corrupt.  After `import jax` it must parse as the shared build does."""
+    import json
+    import shutil
+    import subprocess
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    nd = tmp_path / "native"
+    shutil.copytree(os.path.join(repo, "av1dec_tpu", "native"), nd,
+                    ignore=shutil.ignore_patterns("build*"))
+    subprocess.run(["make", "-s", "-j4", "CXX=g++ -static-libstdc++"],
+                   cwd=nd, check=True, capture_output=True)
+    lib = nd / "build" / "libav1dec_native.so"
+    stream = os.path.join(repo, "streams", "postfilter_384x192.ivf")
+    env = dict(os.environ, AV1DEC_NATIVE_LIB=str(lib),
+               PYTHONPATH=os.pathsep.join([repo, os.path.join(repo, "tools")]))
+    r = subprocess.run([sys.executable, "-c", _STATIC_PARSE, stream],
+                       cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    _, want = _parse_all(stream, tiles=True)
+    assert json.loads(r.stdout) == json.loads(json.dumps(want,
+                                                         sort_keys=True))

@@ -111,8 +111,12 @@ class AomABI:
         self._discover_image()
         self._discover_enc_cfg()
         self._discover_abi_versions()
-        with open(_CACHE, "w") as f:
+        # write-then-rename: a process starting alongside this one must
+        # never read a half-written cache
+        tmp = f"{_CACHE}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
             json.dump({k: v for k, v in self.__dict__.items()}, f, indent=1)
+        os.replace(tmp, _CACHE)
 
     # -- aom_image_t ------------------------------------------------------
     def _discover_image(self) -> None:

@@ -6,9 +6,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
 sys.path.insert(0, os.path.join(_REPO, "tools"))
@@ -19,12 +16,13 @@ def main():
     import jax
 
     import aomffi
+    from av1dec_tpu import compile_cache
     import bench
     from av1dec_tpu.bindings import NativeParser
     from av1dec_tpu.pipeline.device_recon import (DeviceRecon,
                                                   run_device_batch)
 
-    bench.ensure_stream()
+    compile_cache.enable()
     datas = [d for _, d in aomffi.read_ivf(bench.STREAM)][:n]
     print(f"device={jax.devices()[0]}", flush=True)
     parser = NativeParser(threads=2)
